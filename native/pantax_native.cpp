@@ -1,4 +1,4 @@
-// pantax_tpu native data plane: the host-side hot loops that feed the TPU.
+// pantax_tpu native data plane: the host-side hot loops that feed the accelerator.
 //
 // The reference offloads this work to needletail/rust-htslib (SURVEY.md §2.1);
 // here it is a small C++ library exposed through ctypes:

@@ -23,7 +23,7 @@ log = logging.getLogger("pantax_tpu")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pantax-tpu",
-        description="TPU-native pangenome-graph strain-level metagenomic profiler",
+        description="JAX pangenome-graph strain-level metagenomic profiler",
     )
     from . import __version__
 
@@ -78,12 +78,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--precise-clipping analog, alignment.rs:144-165)")
     a.add_argument("--batch-size", type=int, default=None,
                    help="reads per device dispatch (default: 65536 short, "
-                        "16384 long — the long-read [B, chunk] DP measured "
-                        "fastest at 16384: 8192/32768 are 1.4x/1.4x slower)")
+                        "16384 long)")
     a.add_argument("--mesh", default="auto", metavar="auto|off|N",
                    help="shard read batches over a device mesh: 'auto' uses "
-                        "all visible chips (coverage psum-merged over ICI), "
-                        "'off' stays single-chip, N uses the first N devices")
+                        "all visible devices (coverage psum-merged across "
+                        "them), 'off' stays on one device, N uses the first "
+                        "N devices")
     a.add_argument("--distributed", default=None, metavar="HOST:PORT,N,I",
                    help="multi-host runtime: jax.distributed coordinator "
                         "address, process count N, this process id I; every "
@@ -91,7 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "spans all hosts (parallel/distributed.py)")
     a.add_argument("--coverage", default="auto",
                    choices=["auto", "host", "device"],
-                   help="strain coverage engine (device = jitted TPU path)")
+                   help="strain coverage engine (device = jitted device "
+                        "path)")
     a.add_argument("--tail", default="auto",
                    choices=["auto", "host", "device"],
                    help="fused profile tail: keep na/ta/bc on device "
@@ -134,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--log-dir", default=None, help="also write a log file here")
     o.add_argument("--log_m", default=None, help="log file name discriminant")
     o.add_argument("--trace-dir", default=None,
-                   help="write a jax.profiler trace of the alignment stage")
+                   help="write a jax.profiler trace of the alignment stage "
+                        "(alignment+coverage with --fastpath)")
     return p
 
 
@@ -152,9 +154,6 @@ def main(argv: list[str] | None = None) -> int:
 def _main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.batch_size is None:
-        # measured on v5e (tools/long_batch_ab.py): the [B, 512] chunk DP
-        # peaks at B=16384 (8192 and 32768 both ~1.4x slower); short reads
-        # keep the wide batch that amortizes the seed-lookup stage
         args.batch_size = 16384 if args.long_read else 65536
     from .utils import enable_compilation_cache
     from .utils.logging import device_trace, setup_logging, stage_timer
@@ -162,6 +161,8 @@ def _main(argv: list[str] | None = None) -> int:
     enable_compilation_cache()
     setup_logging(args.log_dir, args.log_m, args.verbose)
     t0 = time.time()
+
+    import jax
 
     from .parallel import auto_mesh
 
@@ -179,13 +180,13 @@ def _main(argv: list[str] | None = None) -> int:
 
         coord, n_proc, proc_id = args.distributed.rsplit(",", 2)
         init_distributed(coord, int(n_proc), int(proc_id))
-        import jax
-
         log.info("distributed runtime: process %s of %s, %d global devices",
                  proc_id, n_proc, len(jax.devices()))
+    log.info("backend %s: %d x %s", jax.default_backend(),
+             len(jax.devices()), jax.devices()[0].device_kind)
     mesh = auto_mesh(args.mesh)
     if mesh is not None:
-        log.info("device mesh: %d chips, read batches sharded over ICI",
+        log.info("device mesh: %d devices, read batches sharded over them",
                  mesh.devices.size)
 
     from .db.construct import DatabasePaths, build_database, load_database
@@ -244,9 +245,9 @@ def _main(argv: list[str] | None = None) -> int:
     if args.index:
         if args.warm_kernels:
             # pre-compile the device graphs into the persistent cache so the
-            # first query run pays no compile — on a TPU the compiled
-            # executable IS part of the index (the giraffe .gbz/.dist/.min
-            # role, index.rs:8-159)
+            # first query run pays no compile — the compiled executable is
+            # part of the index (the giraffe .gbz/.dist/.min role,
+            # index.rs:8-159)
             import numpy as np
 
             from .align.aligner import Aligner
@@ -492,7 +493,7 @@ def _run_fastpath_long(args, db, index, tmp: Path, t0: float) -> int:
         profile_from_fused_result,
     )
     from .config import AlignConfig
-    from .utils.logging import stage_timer
+    from .utils.logging import device_trace, stage_timer
 
     n_proc = jax.process_count()
     dist = n_proc > 1
@@ -522,7 +523,8 @@ def _run_fastpath_long(args, db, index, tmp: Path, t0: float) -> int:
         group_bases = DEFAULT_GROUP_BASES
         if dist:
             group_bases = max(group_bases // n_proc, 64 << 20)
-    with stage_timer("long-read alignment+coverage (fastpath)"):
+    with (stage_timer("long-read alignment+coverage (fastpath)"),
+          device_trace(args.trace_dir)):
         for gi, group in enumerate(
             iter_read_groups(args.reads, group_bases=group_bases)
         ):
@@ -634,7 +636,7 @@ def _run_fastpath_fused(args, db, index, aligner, tmp: Path, t0: float,
         FusedPipeline, FusedResult, build_fused_tables,
         profile_from_fused_result,
     )
-    from .utils.logging import stage_timer
+    from .utils.logging import device_trace, stage_timer
     from .utils.native import fastx_parse_native
 
     n_proc = jax.process_count()
@@ -663,7 +665,8 @@ def _run_fastpath_fused(args, db, index, aligner, tmp: Path, t0: float,
                                        chunk_bytes=chunk_bytes)
         return stream_fastx_buffers(rf, chunk_bytes)
 
-    with stage_timer("alignment+coverage (fused)"):
+    with (stage_timer("alignment+coverage (fused)"),
+          device_trace(args.trace_dir)):
         if args.paired and len(args.reads) in (1, 2):
             from .io.fastx import stream_paired_parsed
 

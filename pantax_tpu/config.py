@@ -37,9 +37,9 @@ class ProfilingConfig:
     # --smode: 0 keeps only non-pan species ranges, 1 only pan, else all
     mode: int = 2
     full: bool = True
-    # 'admm' (JAX/TPU) or 'highs' (scipy host oracle)
+    # 'admm' (JAX, on device) or 'highs' (scipy host oracle)
     solver: str = "admm"
-    # coverage engine: 'host' (NumPy), 'device' (jitted TPU path), or 'auto'
+    # coverage engine: 'host' (NumPy), 'device' (jitted device path), or 'auto'
     # (device above auto_device_reads reads per species)
     coverage: str = "auto"
     auto_device_reads: int = 500_000
@@ -77,7 +77,7 @@ class AlignConfig:
     # shrink with S.  hits_per_seed=2 was TRIED AND REJECTED: -0.17% aligned,
     # mapq60 0.762 -> 0.745 at 102 strains (multiplicity evidence lost).
     max_seeds: int = 16
-    # banded-DP half band.  4 (8 sublane rows = ONE tile, half the DP work)
+    # banded-DP half band.  4 (8 band rows, half the DP work of 8)
     # measured identical to 8 on 150bp short reads at 1% subs + 1% indels
     # (102-strain CPU A/B: aligned/acc/mapq unchanged); LONG-read chunks
     # keep 8 via for_read_type("long") — indel drift across a 512bp chunk

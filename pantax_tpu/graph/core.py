@@ -2,7 +2,7 @@
 
 A :class:`SpeciesGraph` is the framework's equivalent of the reference's
 serialized ``Graph { nodes_len, paths }`` (/root/reference/pantax/src/types.rs:51-55)
-with two TPU-first extensions:
+with two device-first extensions:
 
   - paths are stored flat (CSR: ``path_indptr``/``path_nodes``) so they can be
     shipped to the device without ragged structures;

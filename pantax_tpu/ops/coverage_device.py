@@ -1,7 +1,7 @@
 """Full-parity device coverage: node bases, exact per-base counts, and
 trio-node coverage as one jitted JAX computation.
 
-This is the TPU port of profile/coverage.py (itself the oracle for the
+This is the device port of profile/coverage.py (itself the oracle for the
 reference's get_node_abundances, /root/reference/pantax/src/profile.rs:742-1026):
 
   - per-(read, position) base allocation with first-occurrence dedup (sorting
@@ -39,7 +39,7 @@ def build_hash_lookup(hash_sorted: np.ndarray, n_real: int):
     """(bucket_lo int32 [nb+1], bits, steps, probes) for _hash_bisect_left.
 
     jnp.searchsorted over a U-entry sorted table costs log2(U) SERIAL gather
-    rounds (~73ms per 32k-read batch at U=1M on v5e); bucketing by the top
+    rounds; bucketing by the top
     ``bits`` of the uniform hash cuts that to ~2-3 in-bucket bisection steps.
     ``probes`` is the longest run of equal hashes among the n_real live
     entries (the sentinel pad run is excluded — sentinels never match a
@@ -154,8 +154,8 @@ def _coverage_scatter(
     entirely with precomputed unique-trio indices per window — the fused
     path's windows are consecutive text segments, so their matches are baked
     into a per-segment table at build time (build_fused_tables.trio_seg) and
-    the whole hash+bisect+probe pipeline (the dominant scatter cost, ~70ms
-    per 65536x16 batch on v5e) collapses to one gather done by the caller."""
+    the whole hash+bisect+probe pipeline (the dominant scatter cost)
+    collapses to one gather done by the caller."""
     if acc is None:
         acc_b = jnp.zeros(num_nodes, dtype=jnp.float32)
         acc_d = jnp.zeros(total_bases + 1, dtype=jnp.int32)
@@ -187,7 +187,8 @@ def _coverage_scatter(
 
     # first occurrence + broadcast of the first-occurrence allocation.
     # Small windows (the fused path's L_cap) use an O(L^2) equality mask +
-    # one-hot matmul: fully parallel on the VPU/MXU, replacing two row
+    # one-hot matmul: fully parallel elementwise work and one batched
+    # product, replacing two row
     # argsorts and an L-step serial scan.  Wide windows (GAF node paths,
     # L up to 1024) keep the sort formulation, whose L^2 mask would not fit.
     if has_dups and L <= 64:
@@ -198,9 +199,10 @@ def _coverage_scatter(
         firstmask = eq & (cum == 1)         # k = first occurrence of node[j]
         first_occ = jnp.diagonal(firstmask, axis1=1, axis2=2)  # j is its own first
         # value at j = alloc at j's first occurrence (exactly one k matches)
+        # HIGHEST: alloc can exceed 2^11, beyond what TF32 holds exactly
         per_pos_val = jnp.einsum(
             "rkj,rk->rj", firstmask.astype(jnp.float32),
-            alloc.astype(jnp.float32),
+            alloc.astype(jnp.float32), precision=jax.lax.Precision.HIGHEST,
         ).astype(alloc.dtype)
         per_pos_val = jnp.where(valid, per_pos_val, 0)
     elif has_dups:
@@ -372,7 +374,7 @@ def sharded_node_abundances(
 ):
     """device_node_abundances jitted over ``mesh`` with the read batch sharded
     along the "reads" axis; graph tables replicated; the three dense outputs
-    replicated (XLA merges the per-shard segment-sums with psums over ICI).
+    replicated (XLA merges the per-shard segment-sums with psums across devices).
 
     Every per-read contribution is an integer-valued float32 / int32, so the
     cross-shard reduction is exact and the outputs are bit-identical to the

@@ -3,7 +3,7 @@
 The process default mesh, once set (CLI --mesh auto, or set_default_mesh in
 code), makes every device compute path — aligner query batches and the
 full-parity coverage engine — shard its read batch across the mesh's "reads"
-axis, with XLA inserting the ICI collectives from the sharding annotations.
+axis, with XLA inserting the collectives from the sharding annotations.
 """
 from .mesh import make_mesh
 

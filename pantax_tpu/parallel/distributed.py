@@ -1,10 +1,10 @@
 """Multi-host runtime skeleton (SURVEY.md §5 distributed-backend row).
 
-The reference is single-host; the TPU framework scales across hosts with
+The reference is single-host; this framework scales across hosts with
 jax.distributed: every process calls :func:`init_distributed`, builds the
-same global ("reads",) mesh over all chips, feeds its local read shard into
-:func:`distributed_node_abundances`, and XLA's psums merge the coverage over
-ICI/DCN.  Coverage contributions are integer-valued, so the merged outputs
+same global ("reads",) mesh over all devices, feeds its local read shard into
+:func:`distributed_node_abundances`, and XLA's psums merge the coverage
+across devices and hosts.  Coverage contributions are integer-valued, so the merged outputs
 are bit-identical to a single-process run (tests/test_distributed.py proves
 this on a 2-process CPU mesh).
 """

@@ -19,7 +19,7 @@ Parity: /root/reference/pantax/src/profile.rs:742-1026 (get_node_abundances):
   node_base_cov[i] = number of distinct covered bases of node i.
 
 This host implementation is vectorized NumPy (sort-based grouping, no O(L^2)
-terms) and is the correctness oracle for the TPU segment_sum path
+terms) and is the correctness oracle for the device segment_sum path
 (pantax_tpu/ops).  Reads enter as padded arrays; see :func:`pack_reads`.
 """
 from __future__ import annotations

@@ -1,20 +1,26 @@
-"""Persistent XLA compilation cache — first-compile latency on the TPU is
-tens of seconds per batch shape, so every entry point enables this."""
+"""Persistent XLA compilation cache: the query, fused-coverage and profile-tail
+graphs take seconds to minutes to compile, so every entry point enables this
+and a second process loads them instead of compiling again."""
 from __future__ import annotations
 
 import os
+from pathlib import Path
+
+CHECKOUT_CACHE = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
+def enable_compilation_cache() -> str:
+    """Turn the persistent cache on and return its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is the directory: JAX reads it
+    itself and nothing is set here.  Otherwise the cache lives at the fixed
+    path ``<checkout>/.jax_cache`` — a fixed path, because the directory is
+    part of what a later process must find again."""
     import jax
 
-    cache_dir = path or os.environ.get(
-        "PANTAX_TPU_COMP_CACHE", os.path.expanduser("~/.cache/pantax_tpu_xla")
-    )
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # older jax without these knobs
-        pass
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    CHECKOUT_CACHE.mkdir(exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(CHECKOUT_CACHE))
+    return str(CHECKOUT_CACHE)

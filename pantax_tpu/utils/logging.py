@@ -84,13 +84,19 @@ class ProgressMonitor:
 
 @contextmanager
 def device_trace(trace_dir: str | os.PathLike | None):
-    """jax.profiler trace wrapper: `with device_trace('/tmp/trace'): ...`."""
+    """jax.profiler trace wrapper: `with device_trace('/tmp/trace'): ...`.
+
+    Device activity and host-side annotations only: Python function tracing
+    would record every call of the host loops, slowing them and growing the
+    trace by millions of events."""
     if trace_dir is None:
         yield
         return
     import jax
 
-    jax.profiler.start_trace(os.fspath(trace_dir))
+    opts = jax.profiler.ProfileOptions()
+    opts.python_tracer_level = 0
+    jax.profiler.start_trace(os.fspath(trace_dir), profiler_options=opts)
     try:
         yield
     finally:

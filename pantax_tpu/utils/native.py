@@ -1,8 +1,9 @@
 """On-demand build + ctypes loading of the native C++ data plane.
 
-Compiles native/pantax_native.cpp once per environment (cached .so next to the
-source) and exposes typed wrappers.  Every entry point has a NumPy fallback so
-the framework still runs where no compiler is available.
+Compiles native/pantax_native.cpp into native/pantax_native.so (not tracked
+by git) on first use in a checkout, and again whenever the source is newer,
+and exposes typed wrappers.  Every entry point has a NumPy fallback so the
+framework still runs where no compiler is available.
 """
 from __future__ import annotations
 
@@ -37,10 +38,18 @@ def load_native() -> ctypes.CDLL | None:
         try:
             if (not os.path.exists(so)
                     or os.path.getmtime(so) < os.path.getmtime(src)):
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", src, "-o", so],
-                    check=True, capture_output=True,
-                )
+                # build beside the target and rename into place: processes
+                # that build at once (test workers) never load a partial file
+                tmp = f"{so}.{os.getpid()}.tmp"
+                try:
+                    subprocess.run(
+                        ["g++", "-O3", "-shared", "-fPIC", src, "-o", tmp],
+                        check=True, capture_output=True,
+                    )
+                    os.replace(tmp, so)
+                finally:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
             lib = ctypes.CDLL(so)
         except (OSError, subprocess.CalledProcessError) as e:
             log.warning("native library unavailable, using NumPy paths: %s", e)

@@ -180,7 +180,7 @@ def test_qt_screen_only(workdir):
 
 def test_index_warm_kernels(workdir):
     """--index --warm-kernels pre-compiles the query + fused graphs (the
-    executable is part of the index on TPU; giraffe index role)."""
+    executable is part of the index; giraffe index role)."""
     rc = main(["-d", "db", "--index", "--warm-kernels", "--batch-size", "256"])
     assert rc == 0
 

@@ -211,3 +211,110 @@ def test_sampling_deterministic():
     assert (np.diff(a) > 0).all()
     c = sample_valid_nodes(np.arange(300), 500, False)
     assert len(c) == 300
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_admm_objective_within_1e_4_of_highs(seed):
+    """The parity standard of the device solver: serial and batched ADMM
+    (float32, HIGHEST-precision products, then polished) reach an objective
+    within 1e-4 (relative) of the exact float64 HiGHS LP."""
+    from pantax_tpu.profile.pao import solve_pao_batch
+
+    rng = np.random.default_rng(100 + seed)
+    instances = []
+    for _ in range(3):
+        A, b, ub = random_instance(rng, n=int(rng.integers(100, 600)),
+                                   p=int(rng.integers(2, 8)))
+        instances.append((A, b, ub, None))
+    batch = solve_pao_batch(instances, solver="admm")
+    for (A, b, ub, _), res in zip(instances, batch):
+        exact = solve_pao(A, b, ub, solver="highs").objective
+        serial = solve_pao(A, b, ub, solver="admm").objective
+        for got in (res.objective, serial):
+            assert got <= exact * (1 + 1e-4) + 1e-9
+
+
+def _lowered_dots(case):
+    import jax
+    import jax.numpy as jnp
+
+    from pantax_tpu.ops import coverage_device, profile_tail
+    from pantax_tpu.profile import pao
+
+    A = jnp.ones((16, 4), jnp.float32)
+    b = jnp.ones(16, jnp.float32)
+    if case == "admm_chunk":
+        L = pao._ADMM_FACTOR_JIT(A)
+        low = pao._admm_chunk.lower(A, b, 1.0, jnp.float32(1.0),
+                                    pao._zero_state(A), L, iters=2)
+    elif case == "admm_factor":
+        low = pao._ADMM_FACTOR_JIT.lower(A)
+    elif case == "tail_prepare":
+        i32 = lambda *s: jnp.zeros(s, jnp.int32)
+        low = profile_tail._prepare_batch.lower(
+            b, i32(16), i32(1), i32(1), i32(1, 4), i32(1, 4),
+            jnp.ones(1, jnp.float32), n_pad=16, p_pad=4, Lp=4)
+    else:  # windowed coverage scatter: one-hot einsum over a short window
+        R, Lw = 4, 8
+        i32 = lambda *s: jnp.zeros(s, jnp.int32)
+        low = jax.jit(
+            coverage_device._coverage_scatter,
+            static_argnames=("num_nodes", "total_bases", "num_trios",
+                             "has_dups"),
+        ).lower(i32(R, Lw), i32(R), i32(R), i32(R), i32(8), i32(9),
+                jnp.zeros(4, jnp.uint32), i32(4), i32(4, 3),
+                num_nodes=8, total_bases=64, num_trios=4, has_dups=True)
+    return [ln for ln in low.as_text().splitlines() if "dot_general" in ln]
+
+
+@pytest.mark.parametrize(
+    "case", ["admm_chunk", "admm_factor", "tail_prepare", "coverage_scatter"])
+def test_device_matmuls_pin_highest_precision(case):
+    """Every float32 product on the device tail and coverage paths asks for
+    full float32 precision: a GPU's default f32 matmul may round its inputs
+    to TF32, which the 1e-4 objective standard cannot absorb."""
+    dots = _lowered_dots(case)
+    assert dots, "no matrix product found in the lowered program"
+    for ln in dots:
+        assert "precision = [HIGHEST, HIGHEST]" in ln, ln
+
+
+@pytest.mark.parametrize("kind", ["random", "shared_core", "duplicate_path"])
+def test_highs_ipm_oracle_matches_simplex_objective(kind):
+    """The HiGHS oracle (interior point + crossover) reaches the simplex's
+    optimal objective on PAO instances, degenerate ones included, and
+    returns a feasible x; x itself may be another point of the optimal
+    face when the optimum is not unique (PARITY.md)."""
+    from scipy.optimize import linprog
+    from scipy.sparse import csr_matrix, eye, hstack, vstack
+
+    def simplex_objective(A, b, ub):
+        n, p = A.shape
+        As = csr_matrix(A)
+        G = vstack([hstack([As, -eye(n)]), hstack([-As, -eye(n)])],
+                   format="csr")
+        c = np.concatenate([np.zeros(p), np.full(n, 1.0 / n)])
+        res = linprog(c, A_ub=G, b_ub=np.concatenate([b, -b]),
+                      bounds=[(0.0, ub)] * p + [(0.0, None)] * n,
+                      method="highs-ds")
+        assert res.success
+        return float(np.abs(A @ res.x[:p] - b).sum() / n)
+
+    for seed in range(8):
+        rng = np.random.default_rng(500 + seed)
+        p = int(rng.integers(2, 8))
+        n = int(rng.integers(60, 400))
+        A, _, _ = random_instance(rng, n=n, p=p)
+        if kind == "shared_core":
+            A = np.zeros((n, p))
+            A[: n // 2] = 1.0
+            A[np.arange(n // 2, n), rng.integers(0, p, n - n // 2)] = 1.0
+        elif kind == "duplicate_path":
+            A[:, 1] = A[:, 0]
+        x_true = rng.uniform(0, 4, size=p)
+        b = np.maximum(A @ x_true + rng.normal(0, 0.03, size=n), 0.0)
+        ub = 1.05 * max(b.max(), 1e-9)
+        got = solve_pao(A, b, ub, solver="highs")
+        assert (got.x >= -1e-9).all() and (got.x <= ub + 1e-9).all()
+        want = simplex_objective(A, b, ub)
+        assert abs(got.objective - want) <= 1e-9 * max(want, 1e-12), seed

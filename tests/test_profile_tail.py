@@ -55,7 +55,7 @@ def _single_species_tt(paths, trio_index, nodes_len):
     bypass build_tail_tables' FusedTables dependency)."""
     import jax.numpy as jnp
 
-    from pantax_tpu.ops.profile_tail import TailTables
+    from pantax_tpu.ops.profile_tail import TailTables, segment_layout
 
     names = sorted(paths)
     G = len(names)
@@ -64,16 +64,18 @@ def _single_species_tt(paths, trio_index, nodes_len):
     off = np.zeros(G + 1, dtype=np.int64)
     np.cumsum([len(p) for p in parts], out=off[1:])
     path_list = [np.asarray(paths[n]) for n in names]
+    trio_hap = (np.argmax(hm, axis=1).astype(np.int32)
+                if hm.size else np.zeros(0, np.int32))
+    path_node = np.concatenate(parts)
+    path_hap = np.repeat(np.arange(G, dtype=np.int32), [len(p) for p in parts])
+    node_species = np.zeros(len(nodes_len), np.int32)
     return TailTables(
-        trio_hap_d=jnp.asarray(
-            np.argmax(hm, axis=1).astype(np.int32)
-            if hm.size else np.zeros(0, np.int32)
-        ),
-        path_node_d=jnp.asarray(np.concatenate(parts)),
-        path_hap_d=jnp.asarray(
-            np.repeat(np.arange(G, dtype=np.int32), [len(p) for p in parts])
-        ),
-        node_species_d=jnp.asarray(np.zeros(len(nodes_len), np.int32)),
+        trio_hap_d=jnp.asarray(trio_hap),
+        path_node_d=jnp.asarray(path_node),
+        node_species_d=jnp.asarray(node_species),
+        trio_lay=segment_layout(trio_hap, G),
+        path_lay=segment_layout(path_hap, G, src=path_node),
+        node_lay=segment_layout(node_species, 1),
         hap_node_off=off,
         trio_count=np.array(
             [(hm[:, h] > 0).sum() if hm.size else 0 for h in range(G)],
@@ -432,3 +434,28 @@ def test_tail_modes_agree_on_borderline_divergence(tmp_path):
             f"strain sets diverge between tail modes at fc={fc}: "
             f"host={sets['host']} device={sets['device']}"
         )
+
+
+@pytest.mark.parametrize("n,G", [(1, 3), (1000, 17), (4097, 50)])
+def test_sorted_segment_sum_matches_scatter(n, G):
+    """The fixed-tree segment sum behind the tail stats equals a float64
+    scatter-add (to float32 rounding) for unsorted ids, with and without a
+    source gather, drops padding ids >= G, leaves empty segments at zero,
+    and spans segments longer than one layout row."""
+    import jax.numpy as jnp
+
+    from pantax_tpu.ops.profile_tail import _ROW, _segment_sum, segment_layout
+
+    rng = np.random.default_rng(n)
+    seg = rng.integers(0, G + 2, size=n).astype(np.int32)
+    seg[: min(n, 2 * _ROW + 3)] = 0  # segment 0 takes three rows
+    vals = rng.random(n).astype(np.float32)
+    want = np.zeros(G)
+    np.add.at(want, seg[seg < G], vals[seg < G].astype(np.float64))
+    got = np.asarray(_segment_sum(jnp.asarray(vals), segment_layout(seg, G)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert (got[np.setdiff1d(np.arange(G), seg)] == 0.0).all()
+    src = rng.permutation(n)
+    got_src = _segment_sum(jnp.asarray(vals[np.argsort(src)]),
+                           segment_layout(seg, G, src=src))
+    np.testing.assert_array_equal(np.asarray(got_src), got)

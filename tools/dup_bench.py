@@ -10,7 +10,7 @@ machinery (ops/fused._decide_ranges -> False).  This tool synthesizes a
 10-species x 3-strain community whose GFA paths revisit a repeat node every
 REPEAT_EVERY segments (well inside the 64-segment dup window), imports it via
 the --gfa-dir path, verifies tables.has_dups, and records align steady +
-e2e at 1M reads — the committed figure VERDICT r4 item 4 asks for.
+e2e at 1M reads.
 
 Usage: python tools/dup_bench.py [n_reads]
 Prints one JSON line.
